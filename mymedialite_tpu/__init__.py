@@ -1,15 +1,14 @@
-"""mymedialite_tpu — a TPU-native collaborative-filtering framework.
+"""mymedialite_tpu — a collaborative-filtering framework on JAX.
 
 A from-scratch rebuild of the capabilities of MyMediaLite
-(reference: jordansilva/MyMediaLite, C#/Mono) designed TPU-first:
+(reference: jordansilva/MyMediaLite, C#/Mono) as array programs:
 
 - interaction data as packed int32/float32 COO + CSR arrays (not object lists)
 - all hot math as XLA-compiled JAX (minibatch SGD scatter-adds, batched ALS
-  solves, full-catalog top-K matmuls, co-occurrence Gram matmuls), with
-  Pallas kernels where fusion warrants
-- multi-chip scaling via jax.sharding.Mesh + row-sharded embedding tables
-  (the TPU-native replacement for the reference's Gemulla DSGD multicore
-  scheduler, reference MultiCore.cs:43-92)
+  solves, full-catalog top-K matmuls, co-occurrence Gram matmuls)
+- multi-device scaling via jax.sharding.Mesh + row-sharded embedding tables
+  (the replacement for the reference's Gemulla DSGD multicore scheduler,
+  reference MultiCore.cs:43-92)
 
 Two task families, mirroring the reference:
 - rating prediction (explicit feedback; RMSE/MAE/NMAE/CBD)

@@ -61,25 +61,6 @@ def add_common_options(parser: argparse.ArgumentParser):
 VERSION = "3.13"
 
 
-def enable_compile_cache():
-    """Persistent XLA compilation cache for the CLI programs: repeated
-    invocations (shell pipelines, golden tests) skip recompiles — over a
-    remote-TPU link first compiles dominate wall-clock. Opt out with
-    MMLT_COMPILE_CACHE=0."""
-    cache_dir = os.environ.get(
-        "MMLT_COMPILE_CACHE",
-        os.path.expanduser("~/.cache/mymedialite_tpu/xla"))
-    if not cache_dir or cache_dir == "0":
-        return
-    try:
-        import jax
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # cache is best-effort
-
-
 def maybe_start_profile(args):
     """--profile=DIR: write a jax profiler trace for the whole run (view
     with tensorboard / xprof). The trace stops at process exit."""
@@ -96,7 +77,7 @@ def handle_info_flags(args, prog_name: str, measures):
     """--version / --help-measures (reference CommandLineProgram.cs:198-234,
     RatingPrediction.cs:64-66 version banner)."""
     if args.version:
-        print(f"MyMediaLite-TPU {prog_name} {VERSION}")
+        print(f"MyMediaLite-JAX {prog_name} {VERSION}")
         sys.exit(0)
     if args.help_measures:
         print("The following evaluation measures are supported by "

@@ -24,13 +24,15 @@ from mymedialite_tpu.models.base import IterativeModel
 from mymedialite_tpu.models.registry import (
     create_item_recommender, list_item_recommenders,
 )
+from mymedialite_tpu.utils.compile_cache import enable_compile_cache
 from mymedialite_tpu.utils.params import configure
 
 
 def build_parser():
     p = argparse.ArgumentParser(
         prog="item_recommendation",
-        description="MyMediaLite-TPU item recommendation from implicit feedback")
+        description="MyMediaLite-JAX item recommendation from implicit "
+                    "feedback")
     common.add_common_options(p)
     add = p.add_argument
     add("--candidate-items", default=None,
@@ -100,7 +102,7 @@ def main(argv=None):
     from mymedialite_tpu.eval.results import ItemRecommendationResults
     common.handle_info_flags(args, "item_recommendation",
                              ItemRecommendationResults.ALL_MEASURES)
-    common.enable_compile_cache()
+    enable_compile_cache()
     common.maybe_start_profile(args)
     timer = common.PhaseTimer()
 

@@ -21,13 +21,14 @@ from mymedialite_tpu.models.base import IterativeModel
 from mymedialite_tpu.models.registry import (
     create_rating_predictor, list_rating_predictors,
 )
+from mymedialite_tpu.utils.compile_cache import enable_compile_cache
 from mymedialite_tpu.utils.params import configure
 
 
 def build_parser():
     p = argparse.ArgumentParser(
         prog="rating_based_ranking",
-        description="MyMediaLite-TPU rating-based item ranking")
+        description="MyMediaLite-JAX rating-based item ranking")
     common.add_common_options(p)
     add = p.add_argument
     add("--test-users", default=None)
@@ -66,7 +67,7 @@ def main(argv=None):
     from mymedialite_tpu.eval.results import ItemRecommendationResults
     common.handle_info_flags(args, "rating_based_ranking",
                              ItemRecommendationResults.ALL_MEASURES)
-    common.enable_compile_cache()
+    enable_compile_cache()
     common.maybe_start_profile(args)
     timer = common.PhaseTimer()
 

@@ -27,13 +27,14 @@ from mymedialite_tpu.models.base import IterativeModel
 from mymedialite_tpu.models.registry import (
     create_rating_predictor, list_rating_predictors,
 )
+from mymedialite_tpu.utils.compile_cache import enable_compile_cache
 from mymedialite_tpu.utils.params import configure
 
 
 def build_parser():
     p = argparse.ArgumentParser(
         prog="rating_prediction",
-        description="MyMediaLite-TPU rating prediction")
+        description="MyMediaLite-JAX rating prediction")
     common.add_common_options(p)
     p.add_argument("--rating-type", choices=["float", "byte"], default="float")
     p.add_argument("--file-format",
@@ -82,7 +83,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     common.handle_info_flags(args, "rating_prediction",
                              ("RMSE", "MAE", "NMAE", "CBD"))
-    common.enable_compile_cache()
+    enable_compile_cache()
     common.maybe_start_profile(args)
     timer = common.PhaseTimer()
 

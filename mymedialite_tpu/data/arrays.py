@@ -1,6 +1,6 @@
 """Interaction datasets as packed arrays.
 
-TPU-native counterpart of the reference's object-based data layer
+JAX counterpart of the reference's object-based data layer
 (``Data/DataSet.cs:32-285``, ``Data/Ratings.cs:32-337``,
 ``Data/PosOnlyFeedback.cs:32-207``, ``Data/TimedRatings.cs``).
 
@@ -290,7 +290,7 @@ class PosOnlyData(InteractionData):
 
 def padded_history(csr: Csr, max_len: Optional[int] = None, pad: int = -1):
     """Densify ragged per-key histories into a padded [num_keys, L] int32 matrix
-    plus a length vector. The TPU-friendly form of the reference's per-user
+    plus a length vector. The array form of the reference's per-user
     item lists (used by SVD++-family segment sums and BPR sampling)."""
     counts = csr.counts()
     L = int(max_len if max_len is not None else (counts.max() if counts.size else 0))

@@ -1,6 +1,6 @@
 """File readers for interaction data.
 
-TPU-native counterparts of reference ``IO/RatingData.cs``,
+JAX counterparts of reference ``IO/RatingData.cs``,
 ``IO/StaticRatingData.cs``, ``IO/TimedRatingData.cs``,
 ``IO/MovieLensRatingData.cs``, ``IO/ItemData.cs``,
 ``IO/ItemDataRatingThreshold.cs``, ``IO/AttributeData.cs``,

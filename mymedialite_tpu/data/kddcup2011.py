@@ -1,6 +1,6 @@
 """KDD Cup 2011 (Yahoo! Music) data support.
 
-TPU-native counterparts of reference ``IO/KDDCup2011/{Ratings,Items,
+JAX counterparts of reference ``IO/KDDCup2011/{Ratings,Items,
 Track2Items}.cs`` and ``Data/KDDCupItems.cs:24``: the per-user blocked
 rating format (``user|count`` header line, then ``item<TAB>rating[<TAB>...]``
 lines) and the track/album/artist/genre taxonomy.

@@ -1,6 +1,6 @@
 """External string ID <-> dense internal int ID mapping.
 
-TPU-native counterpart of reference ``Data/Mapping.cs:147`` /
+JAX counterpart of reference ``Data/Mapping.cs:147`` /
 ``IdentityMapping.cs``. Append-only: internal IDs are assigned densely in
 first-seen order so they can index embedding-table rows directly.
 """

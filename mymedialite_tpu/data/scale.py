@@ -1,6 +1,6 @@
 """Rating scale: observed rating levels, min/max.
 
-TPU-native counterpart of reference ``Data/RatingScale.cs:30-118``.
+JAX counterpart of reference ``Data/RatingScale.cs:30-118``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Dataset splits as pure index-array operations.
 
-TPU-native counterparts of the reference split objects:
+JAX counterparts of the reference split objects:
 ``RatingsSimpleSplit.cs``, ``RatingCrossValidationSplit.cs``,
 ``RatingsChronologicalSplit.cs:30-65``, ``RatingsPerUserChronologicalSplit.cs``,
 ``PosOnlyFeedbackSimpleSplit.cs``, ``PosOnlyFeedbackCrossValidationSplit.cs``.

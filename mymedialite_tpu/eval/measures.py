@@ -5,7 +5,7 @@ Two forms of each ranking measure:
   direct counterparts of reference ``Eval/Measures/{AUC,NDCG,
   PrecisionAndRecall,ReciprocalRank}.cs``; used in tests as the oracle.
 - the rank form (in ``ranking.py``): vectorized over per-user correct-item
-  rank arrays, used by the batched TPU evaluation path. Both are tested
+  rank arrays, used by the batched device evaluation path. Both are tested
   to agree.
 """
 

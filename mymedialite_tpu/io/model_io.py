@@ -1,6 +1,6 @@
 """Versioned plain-text model files.
 
-TPU-native counterpart of reference ``IO/Model.cs:31-114``,
+JAX counterpart of reference ``IO/Model.cs:31-114``,
 ``IO/MatrixExtensions.cs:31-95``, ``IO/VectorExtensions.cs:30-80``.
 
 File layout (same scheme as the reference):

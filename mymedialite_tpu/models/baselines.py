@@ -1,6 +1,6 @@
 """Trivial / baseline rating predictors.
 
-TPU-native counterparts of reference ``RatingPrediction/{GlobalAverage,
+JAX counterparts of reference ``RatingPrediction/{GlobalAverage,
 UserAverage, ItemAverage, EntityAverage, Constant, Random,
 UserItemBaseline}.cs``. All support incremental updates.
 """

@@ -1,6 +1,6 @@
 """BPR-family item recommenders.
 
-TPU-native counterparts of reference
+JAX counterparts of reference
 ``ItemRecommendation/MF.cs:29`` (abstract implicit-MF base),
 ``BPRMF.cs:73`` (the flagship ranking model),
 ``WeightedBPRMF.cs:32`` (WBPR popularity sampling),
@@ -26,7 +26,8 @@ from mymedialite_tpu.ops import bpr as bpr_ops
 
 def _itemmf_catalog(params, users):
     """Pure catalog scorer for implicit-MF models (module-level: stable
-    jit identity; see Recommender.catalog_scorer)."""
+    jit identity; see Recommender.catalog_scorer). Default matmul
+    precision, as for every catalog scorer (eval/ranking.py)."""
     u = jnp.clip(users, 0, params["user_factors"].shape[0] - 1)
     score = params["user_factors"][u] @ params["item_factors"].T
     if "item_bias" in params:
@@ -42,7 +43,6 @@ class ItemMF(IncrementalItemRecommender, IterativeModel):
         "init_mean": float,
         "init_stdev": float,
         "batch_size": int,
-        "mxu_dtype": str,
     }
 
     def __init__(self):
@@ -52,49 +52,19 @@ class ItemMF(IncrementalItemRecommender, IterativeModel):
         self.init_mean = 0.0
         self.init_stdev = 0.1
         self.batch_size = 8192
-        # MXU operand dtype for the Pallas epochs ('bf16' production
-        # default / 'f32'); measured quality trade recorded in BASELINE
-        self.mxu_dtype = "bf16"
         self.random_seed = 42
         self.params = None
         self._key = None
 
-    # --- params with lazy MXU-layout materialization ------------------
-    #
-    # The MXU epochs keep their kernel-layout tables resident across
-    # iterate() calls (self._mxu_tables): converting per epoch costs
-    # more than the epoch itself at big catalogs (scatter/gather of
-    # ~625k rows measured 2.6 + 1.2 s vs 0.32 s for the kernel,
-    # 2026-08-21). Any read of .params materializes the std layout —
-    # and conservatively invalidates the table cache, since callers may
-    # mutate the returned dict in place (retrain_user etc. do).
-
-    @property
-    def params(self):
-        tabs = getattr(self, "_mxu_tables", None)
-        if tabs is not None:
-            self._params = self._materialize_params(tabs)
-            self._mxu_tables = None
-        return self._params
-
-    @params.setter
-    def params(self, value):
-        self._params = value
-        self._mxu_tables = None
-
-    def _materialize_params(self, tabs):
-        raise NotImplementedError  # overridden by the MXU-epoch models
-
     def init_model(self):
-        from mymedialite_tpu.utils import rand
         f = self.feedback
         key = jax.random.PRNGKey(self.random_seed)
         self._key, ku, ki = jax.random.split(key, 3)
         self.params = dict(
-            user_factors=self.init_mean + self.init_stdev * rand.normal(
-                ku, (f.num_users, self.num_factors)),
-            item_factors=self.init_mean + self.init_stdev * rand.normal(
-                ki, (f.num_items, self.num_factors)),
+            user_factors=self.init_mean + self.init_stdev * jax.random.normal(
+                ku, (f.num_users, self.num_factors), dtype=jnp.float32),
+            item_factors=self.init_mean + self.init_stdev * jax.random.normal(
+                ki, (f.num_items, self.num_factors), dtype=jnp.float32),
         )
 
     def train(self):
@@ -227,16 +197,14 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         self._build_epoch_state()
 
     def _build_epoch_state(self):
-        """(Re)build all feedback-derived training state: the XLA sampler
-        arrays, the WBPR popularity CDF, the MXU-plan dirty flag, and the
-        fixed convergence-loss triple sample (reference BPRMF.cs:135-150:
-        sqrt(|U|) * 100 triples)."""
+        """(Re)build all feedback-derived training state: the sampler
+        arrays, the WBPR popularity CDF, and the fixed convergence-loss
+        triple sample (reference BPRMF.cs:135-150: sqrt(|U|) * 100
+        triples)."""
         self._sampler, meta = bpr_ops.make_sampler_data(
             self.feedback, self.num_neg_trials)
         self._meta = meta
         self._pop_cdf = self._make_pop_cdf()
-        self._bpr_plan = None
-        self._bpr_dirty = True
         n_sample = int(math.isqrt(max(self.feedback.num_users - 1, 1))) * 100
         self._key, sub = jax.random.split(self._key)
         u, i, j, w = bpr_ops._sample_triples(
@@ -263,300 +231,8 @@ class BPRMF(ItemMF, FoldInItemRecommender):
     def _make_pop_cdf(self):
         return None
 
-    # --- Pallas MXU epoch (ops/pallas_bpr.py) ---
-
-    # WBPR popularity negatives (set by WeightedBPRMF): the fused kernel
-    # draws the block by popularity mass and the local index by
-    # inverse-CDF (ops/pallas_bpr.py), matching WeightedBPRMF.cs:55-66
-    MXU_POPULARITY = False
-
-    def _mxu_mode(self) -> str:
-        """Epoch-kernel selection (ops/kernel_select.py, shared with the
-        rating-MF family): 'tpu' = the Pallas MXU one-hot-matmul BPR
-        epoch with fused negative sampling (scatter-free; the XLA epoch
-        is scatter-bound at ~1.3M triples/s at the Netflix bench shape,
-        the MXU epoch measures 82M), 'tiled' = the slab-tiled variant
-        for big catalogs, 'sharded' = the mesh-sharded DSGD epoch (the
-        production path on any mesh — the reference parallelizes BPR by
-        default too, MultiCoreBPRMF.cs:30), '(...)-interpret' = forced
-        interpret mode (tests), '' = the XLA minibatch epoch."""
-        if self.feedback is None:
-            return ""
-        from mymedialite_tpu.ops.kernel_select import select_mxu_mode
-        return select_mxu_mode(self.feedback.num_items, self.num_factors)
-
-    def _prepare_mxu(self):
-        # a new plan means a new item permutation / padding — fold any
-        # resident kernel-layout tables back into params first
-        if getattr(self, "_mxu_tables", None) is not None:
-            self._params = self._materialize_params(self._mxu_tables)
-            self._mxu_tables = None
-        self._bpr_dirty = False
-        self._bpr_plan = None
-        self._bpr_mesh = None
-        mode = self._mxu_mode()
-        if not mode:
-            return
-        from mymedialite_tpu.ops import pallas_bpr as pb
-        from mymedialite_tpu.ops import pallas_sgd as ps
-        sharded_tiled = mode.startswith("sharded-tiled")
-        tiled = mode.startswith("tiled")
-        sharded = mode.startswith("sharded") and not sharded_tiled
-        uniform_user = (self.uniform_user_sampling
-                        and not self.MXU_POPULARITY)
-        if sharded_tiled:
-            # mesh x big catalog: DSGD diagonal schedule with each
-            # device's item partition in HBM, streamed through VMEM
-            # slab by slab (the r4 cliff where this shape fell back to
-            # the XLA epoch — VERDICT r4 missing #1)
-            from mymedialite_tpu.parallel.mesh import make_mesh
-            self._bpr_mesh = make_mesh()
-            sb = max(ps.default_slab_blocks(self.num_factors) // 2, 1)
-            plan, neg_state, neg_meta = pb.prepare_bpr_mxu_sharded_tiled(
-                self.feedback, self._bpr_mesh.devices.size,
-                uniform_user=uniform_user, shuffle_seed=self.random_seed,
-                num_neg_trials=self.num_neg_trials, slab_blocks=sb)
-        elif sharded:
-            from mymedialite_tpu.parallel.mesh import make_mesh
-            self._bpr_mesh = make_mesh()
-            # packed-bitmask eligibility decided inside prepare (actual
-            # plan geometry); the incidence tables replicate per device
-            plan, neg_state, neg_meta = pb.prepare_bpr_mxu_sharded(
-                self.feedback, self._bpr_mesh.devices.size,
-                uniform_user=uniform_user, shuffle_seed=self.random_seed,
-                num_neg_trials=self.num_neg_trials, bitmask="auto")
-        else:
-            plan, neg_state, neg_meta = pb.prepare_bpr_mxu(
-                self.feedback,
-                # WBPR samples (u, i) uniform over events
-                # (WeightedBPRMF.cs:58-60) = the one-pass layout with
-                # unit weights
-                uniform_user=uniform_user,
-                shuffle_seed=self.random_seed,
-                num_neg_trials=self.num_neg_trials,
-                # big catalogs: histogram-optimal chunk + capped
-                # membership keys (see prepare_bpr_mxu docstring for the
-                # truncation bound argument; the [Kcap, C] rejection
-                # compare is the kernel's per-chunk cost ceiling, and
-                # the keys table is n_buckets * Kcap * 4B of HBM)
-                chunk=None if tiled else 640,
-                # tiled: sub-bucketed membership keys (u_loc & 7 split,
-                # one exact f32 one-hot gather + [Ksub, C] compares) —
-                # ~8x less compare volume than the r3 [Kcap=512, C]
-                # path AND 4x the key capacity (8 * 256 per bucket), so
-                # the documented ~1e-4 truncation bias disappears for
-                # realistic shapes (prepare warns if it does not); the
-                # flat keys_tbl stays small, it is unused by the kernel
-                kcap=128 if tiled else None,
-                subkeys=tiled,
-                ksub_cap=256 if tiled else None,
-                # the packed-bitmask membership (~4x cheaper fused
-                # sampling) is sized inside prepare from the actual
-                # plan geometry; the tiled kernel uses sub-bucket keys
-                bitmask=False if tiled else "auto",
-                # per-chunk fixed cost in slot-equivalents: the
-                # 2026-08-21 chunk sweep (exp_bpr_tiled.py, KDD shape,
-                # dedup'd sub-bucket keys) measured 19.7 / 41.4 / 35.9 /
-                # 35.4M triples/s at chunk 128 / 256 / 384 / 512 —
-                # overhead 256 makes the histogram planner land on the
-                # measured optimum at this shape and scale with skew
-                chunk_overhead=256 if tiled else 0)
-        self._bpr_plan = plan
-        self._bpr_neg_state = neg_state
-        self._bpr_neg_meta = neg_meta
-        self._bpr_interpret = mode.endswith("interpret")
-        self._bpr_new_of_old = jnp.asarray(plan.new_of_old)
-        if tiled:
-            # half the SGD slab budget: TWO slab slots live in VMEM
-            sb = max(ps.default_slab_blocks(self.num_factors) // 2, 1)
-            packed_ext, S, n_pass, P, slab_items = pb.bpr_tiled_plan(
-                plan, neg_state["nvalid"], slab_blocks=sb)
-            self._bpr_tiled = dict(packed=packed_ext, num_slabs=S,
-                                   num_passes=n_pass, pass_len=P,
-                                   slab_items=slab_items, slab_blocks=sb)
-        else:
-            self._bpr_tiled = None
-
-    def _materialize_params(self, tabs):
-        from mymedialite_tpu.ops import pallas_bpr as pb
-        We, He = tabs
-        W, H, bias = pb.bpr_tables_from_mxu(
-            We, He, self._bpr_new_of_old,
-            num_users=self._mxu_num_users, num_factors=self.num_factors)
-        return dict(user_factors=W, item_factors=H, item_bias=bias)
-
-    def _iterate_mxu(self):
-        """One epoch through the Pallas kernel: the kernel-layout
-        tables stay RESIDENT across iterate() calls (the per-epoch
-        scatter/gather layout conversions cost several x the epoch
-        itself at big catalogs); negatives are sampled inside the
-        kernel from hardware-RNG bits. Reads of .params materialize the
-        std layout lazily, so predict / retrain / save-load paths are
-        untouched."""
-        import numpy as np
-
-        from mymedialite_tpu.ops import pallas_bpr as pb
-        plan = self._bpr_plan
-        f = self.num_factors
-        fe = max(64, ((f + 2 + 7) // 8) * 8)
-        tl = getattr(self, "_bpr_tiled", None)
-        tabs = getattr(self, "_mxu_tables", None)
-        if tabs is not None:
-            We, He = tabs
-            self._mxu_tables = None     # donated into the epoch below
-        else:
-            p = self._params
-            self._mxu_num_users = p["user_factors"].shape[0]
-            We, He = pb.bpr_tables_to_mxu(
-                p["user_factors"], p["item_factors"], p["item_bias"],
-                self._bpr_new_of_old, u_pad=plan.u_pad,
-                i_pad=plan.i_pad, fe=fe)
-            if tl is not None:
-                # pad the item table to whole slabs ONCE per residency
-                i_pad2 = tl["num_slabs"] * tl["slab_blocks"] \
-                    * plan.item_block
-                if He.shape[0] < i_pad2:
-                    He = jnp.concatenate([He, jnp.zeros(
-                        (i_pad2 - He.shape[0], He.shape[1]), He.dtype)])
-            elif isinstance(plan, (pb.BprShardedPlan,
-                                   pb.BprShardedTiledPlan)):
-                from jax.sharding import NamedSharding, PartitionSpec as P
-                sh2 = NamedSharding(self._bpr_mesh, P("data", None))
-                We = jax.device_put(We, sh2)
-                He = jax.device_put(He, sh2)
-        rates = pb.bpr_mxu_column_rates(
-            f, fe, self.learn_rate, self.reg_u, self.reg_i, self.reg_j,
-            self.bias_reg, self.update_j)
-        self._epoch_counter = getattr(self, "_epoch_counter", 0) + 1
-        n_ib, Kcap, trials, num_items, _IB = self._bpr_neg_meta
-        seed = (self.random_seed + 1) * 1_000_003 + self._epoch_counter
-        # sampler bits ride the TPU hardware RNG (threefry measured
-        # ~1.2 s per 1.2 GB epoch of bits — comparable to the epoch
-        # itself); deterministic per (seed, epoch)
-        k_bits = jax.random.key(seed & 0x7FFFFFFF, impl="unsafe_rbg")
-        if isinstance(plan, pb.BprShardedTiledPlan):
-            from jax.sharding import NamedSharding, PartitionSpec as P
-            mesh = self._bpr_mesh
-            D = mesh.devices.size
-            sh3 = NamedSharding(mesh, P("data", None, None))
-            sh5 = NamedSharding(mesh, P("data", None, None, None, None))
-            repl = NamedSharding(mesh, P())
-            order = plan.epoch_order(
-                self._bpr_neg_state["nvalid"], seed,
-                block_mass=(self._bpr_neg_state["block_mass"]
-                            if self.MXU_POPULARITY else None))
-            bits = pb.epoch_random_bits(
-                k_bits, nc=D * D * plan.nc_pad, trials=trials,
-                C=plan.chunk).reshape(D, D, plan.nc_pad, trials,
-                                      plan.chunk)
-            o = tuple(jax.device_put(a, sh3) for a in order)
-            We, He, _neg = pb.bpr_epoch_mxu_sharded_tiled_jit(
-                mesh, We, He,
-                jax.device_put(plan.packed, repl),
-                jax.device_put(self._bpr_neg_state["subkeys_tbl"], repl),
-                jax.device_put(self._bpr_neg_state["cdf_tbl"], repl),
-                jax.device_put(bits, sh5), *o, rates,
-                meta=plan.meta(fe) + (self._bpr_neg_state["ksub"],
-                                      trials),
-                slabs_per_part=plan.slabs_per_part,
-                soft_margin=self.SOFT_MARGIN, wbpr=self.MXU_POPULARITY,
-                mxu_dtype=self.mxu_dtype, interpret=self._bpr_interpret)
-        elif isinstance(plan, pb.BprShardedPlan):
-            from jax.sharding import NamedSharding, PartitionSpec as P
-            mesh = self._bpr_mesh
-            D = mesh.devices.size
-            sh2 = NamedSharding(mesh, P("data", None))
-            sh3 = NamedSharding(mesh, P("data", None, None))
-            sh5 = NamedSharding(mesh, P("data", None, None, None, None))
-            repl = NamedSharding(mesh, P())
-            order = plan.epoch_order(
-                self._bpr_neg_state["nvalid"], seed,
-                block_mass=(self._bpr_neg_state["block_mass"]
-                            if self.MXU_POPULARITY else None))
-            bits = pb.epoch_random_bits(
-                k_bits, nc=D * D * plan.nc_pad, trials=trials,
-                C=plan.chunk).reshape(D, D, plan.nc_pad, trials,
-                                      plan.chunk)
-            bm = self._bpr_neg_state.get("bitmask_tbl")
-            use_bm = bm is not None
-            if not use_bm:
-                bm = jnp.zeros((1, plan.user_block, plan.item_block // 8),
-                               jnp.int8)
-            ub, ibk, jb, jbg, nval, bkt, row = (
-                jax.device_put(a, sh3) for a in order)
-            We, He, _neg = pb.bpr_epoch_mxu_sharded_jit(
-                mesh, We, He,
-                jax.device_put(plan.packed, repl),
-                jax.device_put(self._bpr_neg_state["keys_tbl"], repl),
-                jax.device_put(self._bpr_neg_state["cdf_tbl"], repl),
-                jax.device_put(bits, sh5),
-                ub, ibk, jb, jbg, nval, bkt, row, rates,
-                jax.device_put(bm, repl),
-                meta=plan.meta(fe) + (Kcap, trials), use_bitmask=use_bm,
-                soft_margin=self.SOFT_MARGIN, wbpr=self.MXU_POPULARITY,
-                mxu_dtype=self.mxu_dtype, interpret=self._bpr_interpret)
-        elif tl is not None:
-            if self._bpr_interpret:
-                # interpret mode needs host-computed refetch flags
-                # (input_output_aliases are not simulated)
-                order = pb.bpr_tiled_epoch_order(
-                    plan, self._bpr_neg_state["nvalid"],
-                    tl["slab_items"], slab_blocks=tl["slab_blocks"],
-                    num_slabs=tl["num_slabs"],
-                    num_passes=tl["num_passes"], pass_len=tl["pass_len"],
-                    num_items=num_items, seed=seed,
-                    block_mass=(self._bpr_neg_state["block_mass"]
-                                if self.MXU_POPULARITY else None))
-            else:
-                # real TPU: the whole per-epoch schedule is built
-                # on-device (one fused dispatch — the host argsort +
-                # transfers measured ~0.2 s/epoch at the KDD shape)
-                order = pb.device_bpr_tiled_epoch_order(
-                    plan, tl, self._bpr_neg_state["nvalid"],
-                    num_items=num_items, seed=seed,
-                    block_mass=(self._bpr_neg_state["block_mass"]
-                                if self.MXU_POPULARITY else None))
-            bits = pb.epoch_random_bits(
-                k_bits, nc=tl["num_passes"] * tl["pass_len"],
-                trials=trials, C=plan.chunk).reshape(
-                tl["num_passes"], tl["pass_len"], trials, plan.chunk)
-            slab_rows = tl["slab_blocks"] * plan.item_block
-            We, He, _neg = pb.bpr_epoch_mxu_tiled(
-                We, He, tl["packed"], self._bpr_neg_state["subkeys_tbl"],
-                self._bpr_neg_state["cdf_tbl"], bits, order, rates,
-                meta=(tl["pass_len"], plan.chunk, plan.user_block,
-                      plan.item_block, plan.n_ublocks, slab_rows, fe,
-                      self._bpr_neg_state["ksub"], trials),
-                num_slabs=tl["num_slabs"], soft_margin=self.SOFT_MARGIN,
-                wbpr=self.MXU_POPULARITY, subkeys=True,
-                mxu_dtype=self.mxu_dtype, interpret=self._bpr_interpret)
-        else:
-            order = plan.epoch_order(seed)
-            ub_visit = plan.ub_c[np.asarray(order[2])]
-            jb, nval, bkt = pb.epoch_negative_plan(
-                plan, self._bpr_neg_state["nvalid"], ub_visit, num_items,
-                (self.random_seed + 7) * 999_983 + self._epoch_counter,
-                block_mass=(self._bpr_neg_state["block_mass"]
-                            if self.MXU_POPULARITY else None))
-            bits = pb.epoch_random_bits(k_bits, nc=plan.num_chunks,
-                                        trials=trials, C=plan.chunk)
-            We, He, _neg = pb.bpr_epoch_mxu(
-                We, He, plan.packed, self._bpr_neg_state["keys_tbl"],
-                self._bpr_neg_state["cdf_tbl"], bits,
-                order, jb, nval, bkt, rates,
-                meta=plan.meta(fe) + (Kcap, trials),
-                soft_margin=self.SOFT_MARGIN, wbpr=self.MXU_POPULARITY,
-                mxu_dtype=self.mxu_dtype, interpret=self._bpr_interpret,
-                bm_tbl=self._bpr_neg_state.get("bitmask_tbl"))
-        # tables stay resident; .params materializes lazily on read
-        self._mxu_tables = (We, He)
-
     def iterate(self):
         self._ensure_epoch_ready()
-        if getattr(self, "_bpr_dirty", True):
-            self._prepare_mxu()
-        if self._bpr_plan is not None:
-            return self._iterate_mxu()
         meta = self._meta
         batch = min(self.batch_size, max(meta["num_events"], 1))
         num_batches = max((meta["num_events"] + batch - 1) // batch, 1)
@@ -604,11 +280,6 @@ class BPRMF(ItemMF, FoldInItemRecommender):
         self._sampler, self._meta = bpr_ops.make_sampler_data(
             self.feedback, self.num_neg_trials)
         self._pop_cdf = self._make_pop_cdf()
-        # the MXU epoch plan buckets the (pre-update) event stream; a
-        # subsequent iterate() must train on the CURRENT feedback
-        # (reference AddFeedback-then-Iterate contract, BPRMF.cs:129-160)
-        self._bpr_dirty = True
-        self._bpr_plan = None
         if self.update_users:
             for u in np.unique(np.asarray(users, dtype=np.int64)):
                 self.retrain_user(int(u))
@@ -708,7 +379,8 @@ class BPRMF(ItemMF, FoldInItemRecommender):
             hi = self.params["item_factors"][jnp.asarray(pos)]
             hj = self.params["item_factors"][jnp.asarray(neg)]
             x = self.params["item_bias"][jnp.asarray(pos)] - \
-                self.params["item_bias"][jnp.asarray(neg)] + (hi - hj) @ vec
+                self.params["item_bias"][jnp.asarray(neg)] + jnp.matmul(
+                    hi - hj, vec, precision=jax.lax.Precision.HIGHEST)
             g = jax.nn.sigmoid(-x)
             vec = vec + self.learn_rate * (
                 jnp.sum(g[:, None] * (hi - hj), axis=0)
@@ -721,7 +393,7 @@ class BPRMF(ItemMF, FoldInItemRecommender):
 
 class MultiCoreBPRMF(BPRMF):
     """Reference MultiCoreBPRMF.cs:30 — hogwild-parallel BPR over index
-    blocks. TPU mapping: with more than one jax device, users are
+    blocks. Here: with more than one jax device, users are
     range-partitioned across a 1-D mesh; each device samples triples for
     its own users on-device (conflict-free user updates, stronger than
     the reference's tolerated races) and item deltas are psum'd per
@@ -759,14 +431,6 @@ class MultiCoreBPRMF(BPRMF):
 
     def iterate(self):
         self._ensure_epoch_ready()
-        # the sharded MXU epoch (base-class production path on a mesh,
-        # ops/kernel_select.py) beats the XLA sharded epoch ~25x —
-        # engage it whenever supported; the psum-merged XLA epoch below
-        # stays the fallback for shapes the MXU kernels cannot take
-        if getattr(self, "_bpr_dirty", True):
-            self._prepare_mxu()
-        if self._bpr_plan is not None:
-            return self._iterate_mxu()
         if self._mesh is None:
             return super().iterate()
         import jax
@@ -822,8 +486,6 @@ class WeightedBPRMF(BPRMF):
         "num_iter": int,
         "learn_rate": float,
     }
-
-    MXU_POPULARITY = True
 
     def _make_pop_cdf(self):
         return bpr_ops.popularity_cdf(self.feedback)

@@ -1,6 +1,6 @@
 """Recommenders that serve pre-computed predictions from a file.
 
-TPU-native counterparts of reference
+JAX counterparts of reference
 ``RatingPrediction/ExternalRatingPredictor.cs:32`` and
 ``ItemRecommendation/ExternalItemRecommender.cs:32``: 'training' reads a
 ``user item score`` file through the program's ID mappings and serves

@@ -1,6 +1,6 @@
 """Trivial / popularity item recommenders.
 
-TPU-native counterparts of reference ``ItemRecommendation/{MostPopular,
+JAX counterparts of reference ``ItemRecommendation/{MostPopular,
 MostPopularByAttributes, Zero, Random, BigramRules}.cs``.
 """
 

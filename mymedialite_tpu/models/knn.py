@@ -1,7 +1,7 @@
 """k-nearest-neighbor recommenders (rating + implicit, collaborative +
 attribute-based).
 
-TPU-native counterparts of reference
+JAX counterparts of reference
 ``RatingPrediction/KNN.cs:47-175`` (+ ``UserKNN.cs:28``, ``ItemKNN.cs:28``,
 ``UserAttributeKNN.cs``, ``ItemAttributeKNN.cs``) and
 ``ItemRecommendation/KNN.cs:29-178`` (+ ``UserKNN.cs:30``, ``ItemKNN.cs:31``,

@@ -1,12 +1,12 @@
 """SocialMF — matrix factorization with social (trust) regularization.
 
-TPU-native counterpart of reference ``RatingPrediction/SocialMF.cs``
+JAX counterpart of reference ``RatingPrediction/SocialMF.cs``
 (Jamali & Ester, RecSys 2010): BiasedMF prediction with an extra
 regularizer pulling each user's factors toward the mean factors of
 their trusted users; trained by full-batch gradient descent
 (reference IterateBatch :77-191).
 
-On TPU the whole batch step is dense algebra: the rating-error gradient
+On device the whole batch step is dense algebra: the rating-error gradient
 is one segment scatter-add, and both social terms are matmuls with the
 row-normalized trust matrix T:
     grad_social(P) = social_reg * [ D (P - T P) - T^T D (P - T P) ]
@@ -135,10 +135,12 @@ def _social_mf_step(W_ext, H_ext, data, T, has_conn, hp, *, num_users: int,
     # social regularization (reference I.3; factors + bias column together,
     # constant column masked). Only the first U rows participate.
     P = W_ext[:U, :f + 1]  # factors and the user-bias column
-    TP = jnp.dot(T, P, preferred_element_type=jnp.float32)
+    # HIGHEST: gradient math, a TF32 product would round the factors
+    hi = jax.lax.Precision.HIGHEST
+    TP = jnp.dot(T, P, precision=hi, preferred_element_type=jnp.float32)
     M1 = has_conn[:, None] * (P - TP)
-    social = hp["social_reg"] * (
-        M1 - jnp.dot(T.T, M1, preferred_element_type=jnp.float32))
+    social = hp["social_reg"] * (M1 - jnp.dot(
+        T.T, M1, precision=hi, preferred_element_type=jnp.float32))
     grad_W = grad_W.at[:U, :f + 1].add(social)
 
     w_lr = jnp.array([hp["learn_rate"]] * f +

@@ -1,6 +1,6 @@
 """SVD++ / asymmetric-factor-model family of rating predictors.
 
-TPU-native counterparts of reference
+JAX counterparts of reference
 ``RatingPrediction/SVDPlusPlus.cs:43`` (Koren's SVD++, transductive),
 ``SigmoidSVDPlusPlus.cs:42`` (sigmoid bound + selectable loss),
 ``SigmoidItemAsymmetricFactorModel.cs:29`` (no p: user expressed purely
@@ -73,9 +73,6 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
     SIGMOID = False
     USE_P = True
     SHARDABLE = True  # mesh-sharded epochs (ops/svdpp.py svdpp_epoch_sharded)
-    # Pallas MXU epoch eligibility (ops/pallas_svdpp.py); GSVD++ keeps
-    # the XLA grouped epoch (attribute-factor updates)
-    MXU_ELIGIBLE = True
 
     def __init__(self):
         super().__init__()
@@ -98,39 +95,6 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
         self.params = None
         self.current_learnrate = None
         self._user_factors_cache = None
-
-    # --- params with lazy MXU-layout materialization (the pattern of
-    # models/bpr.py ItemMF.params: the Pallas epoch keeps kernel-layout
-    # tables resident across iterate() calls; any read of .params
-    # materializes the std layout) ------------------------------------
-
-    @property
-    def params(self):
-        tabs = getattr(self, "_mxu_tables", None)
-        if tabs is not None:
-            self._params = self._materialize_params(tabs)
-            self._mxu_tables = None
-        return self._params
-
-    @params.setter
-    def params(self, value):
-        self._params = value
-        self._mxu_tables = None
-
-    def _materialize_params(self, tabs):
-        from mymedialite_tpu.ops import pallas_svdpp as psv
-        W, Q, Y = tabs
-        U, U_pad = self.num_users_trained, self._U_pad
-        p_mat, bu, q, bi, y = psv.svdpp_tables_from_mxu(
-            W, Q, Y, self._svdpp_new_of_old, num_users=U,
-            num_factors=self.num_factors)
-        pad = U_pad - U
-        out = dict(global_bias=self._mxu_gb,
-                   user_bias=jnp.pad(bu, (0, pad)),
-                   item_bias=bi, item_factors=q, y=y)
-        if self.USE_P:
-            out["p"] = jnp.pad(p_mat, ((0, pad), (0, 0)))
-        return out
 
     # --- data plumbing ---
 
@@ -193,66 +157,11 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
         from mymedialite_tpu.parallel.mesh import make_mesh
         return make_mesh()
 
-    def _svdpp_mxu_mode(self) -> str:
-        """Pallas MXU epoch selection (ops/pallas_svdpp.py): 'tpu' on a
-        single TPU chip when both item tables fit VMEM and the regs are
-        uniform; 'interpret' under MML_MXU=interpret (CPU tests); ''
-        keeps the XLA grouped epoch (ops/svdpp.py). Mesh runs keep the
-        sharded grouped epoch (svdpp_epoch_sharded)."""
-        import os
-        env = os.environ.get("MML_MXU", "auto")
-        if env == "0" or not self.MXU_ELIGIBLE:
-            return ""
-        if self.frequency_regularization or self.ratings is None:
-            return ""
-        from mymedialite_tpu.ops.pallas_svdpp import svdpp_mxu_supported
-        if not svdpp_mxu_supported(self._num_items(), self.num_factors):
-            return ""
-        if env == "interpret":
-            return "interpret"
-        if env != "auto":
-            return ""
-        if jax.default_backend() == "tpu" and len(jax.devices()) == 1:
-            return "tpu"
-        return ""
-
     def _prepare(self):
-        # fold any resident kernel-layout tables back first (a new plan
-        # means a new item permutation / padding)
-        if getattr(self, "_mxu_tables", None) is not None:
-            self._params = self._materialize_params(self._mxu_tables)
-            self._mxu_tables = None
-        self._svdpp_plan = None
-        self.__dict__.pop("_svdpp_inv_dev", None)
         hu, hi = self._history_edges()
         U, I = self._num_users(), self._num_items()
         G = self._auto_group_users(U)
         self._mesh = self._setup_mesh()
-        mode = self._svdpp_mxu_mode()
-        if mode == "interpret":
-            # MML_MXU=interpret pins the single-device kernel even on a
-            # multi-device CPU mesh (same convention as
-            # ops/kernel_select.py select_mxu_mode)
-            self._mesh = None
-        elif self._mesh is not None:
-            mode = ""
-        if mode:
-            from mymedialite_tpu.ops import pallas_svdpp as psv
-            try:
-                self._svdpp_plan = psv.prepare_svdpp_mxu(
-                    self.ratings.users, self.ratings.items,
-                    self.ratings.values, hu, hi, U, I,
-                    shuffle_seed=self.random_seed,
-                    # real TPU: transposed tables slice the lane dim,
-                    # which Mosaic requires to be 128-aligned
-                    block_align=8 if mode == "interpret" else 128)
-                self._svdpp_interpret = mode == "interpret"
-                self._svdpp_new_of_old = jnp.asarray(
-                    self._svdpp_plan.new_of_old)
-                self._svdpp_rates_cache = None
-            except ValueError:
-                # a user block too heavy for one pass: XLA epoch
-                self._svdpp_plan = None
         pad_mult = self._mesh.devices.size if self._mesh is not None else 1
         self._data, meta = svdpp_ops.prepare_groups(
             self.ratings, hu, hi, U, I, G, pad_groups_multiple=pad_mult)
@@ -308,9 +217,10 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
         U_pad, I, f = self._U_pad, self._num_items(), self.num_factors
         seen_i = np.zeros(I, dtype=bool)
         seen_i[self.ratings.items] = True
-        from mymedialite_tpu.utils import rand
-        q = self.init_mean + self.init_stdev * rand.normal(kq, (I, f))
-        y = self.init_mean + self.init_stdev * rand.normal(ky, (I, f))
+        q = self.init_mean + self.init_stdev * jax.random.normal(
+            kq, (I, f), dtype=jnp.float32)
+        y = self.init_mean + self.init_stdev * jax.random.normal(
+            ky, (I, f), dtype=jnp.float32)
         q = jnp.where(jnp.asarray(seen_i)[:, None], q, 0.0)
         y = jnp.where(jnp.asarray(seen_i)[:, None], y, 0.0)
         self.params = dict(
@@ -321,8 +231,8 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
         if self.USE_P:
             seen_u = np.zeros(U_pad, dtype=bool)
             seen_u[self.ratings.users] = True
-            p = self.init_mean + self.init_stdev * rand.normal(
-                kp, (U_pad, f))
+            p = self.init_mean + self.init_stdev * jax.random.normal(
+                kp, (U_pad, f), dtype=jnp.float32)
             self.params["p"] = jnp.where(jnp.asarray(seen_u)[:, None], p, 0.0)
         self.current_learnrate = self.learn_rate
 
@@ -333,9 +243,7 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
 
     def iterate(self):
         self._user_factors_cache = None
-        if getattr(self, "_svdpp_plan", None) is not None:
-            self._iterate_mxu()
-        elif getattr(self, "_mesh", None) is not None:
+        if getattr(self, "_mesh", None) is not None:
             self._iterate_sharded()
         else:
             self.params = svdpp_ops.svdpp_epoch(
@@ -346,59 +254,6 @@ class SVDPlusPlus(IncrementalRatingPredictor, IterativeModel):
                 use_p=self.USE_P, update_user=self.update_users,
                 update_item=self.update_items)
         self.current_learnrate *= self.learn_rate_decay
-
-    def _iterate_mxu(self):
-        """One epoch through the Pallas 3-phase kernel
-        (ops/pallas_svdpp.py): kernel-layout tables stay RESIDENT
-        across iterate() calls; the schedule is static, so the epoch is
-        a single re-dispatch of the compiled scan."""
-        from mymedialite_tpu.ops import pallas_svdpp as psv
-        plan = self._svdpp_plan
-        f = self.num_factors
-        fe = psv.svdpp_fe(f)
-        tabs = getattr(self, "_mxu_tables", None)
-        if tabs is not None:
-            W, Q, Y = tabs
-            self._mxu_tables = None     # donated into the epoch below
-        else:
-            p = self._params
-            self._mxu_gb = p["global_bias"]
-            if "_svdpp_inv_dev" not in self.__dict__:
-                self._svdpp_inv_dev = jnp.asarray(plan.inv_sqrt)
-            p_mat = p.get("p")
-            if p_mat is None:
-                p_mat = jnp.zeros((p["user_bias"].shape[0], f),
-                                  jnp.float32)
-            W, Q, Y = psv.svdpp_tables_to_mxu(
-                p_mat, p["user_bias"], self._svdpp_inv_dev,
-                p["item_factors"], p["item_bias"], p["y"],
-                self._svdpp_new_of_old, u_pad=plan.u_pad,
-                i_pad=plan.i_pad, fe=fe)
-        rk = (self.current_learnrate, self.bias_learn_rate,
-              self.regularization, self.bias_reg, self.USE_P,
-              self.update_users, self.update_items, f, fe,
-              float(self._mxu_gb), self.min_rating, self.max_rating)
-        cached = getattr(self, "_svdpp_rates_cache", None)
-        if cached is not None and cached[0] == rk:
-            rates, hp = cached[1], cached[2]
-        else:
-            rates = psv.svdpp_mxu_rates(
-                f, fe, self.current_learnrate, self.bias_learn_rate,
-                self.regularization, self.bias_reg, self.regularization,
-                use_p=self.USE_P, update_user=self.update_users,
-                update_item=self.update_items)
-            hp_host = np.zeros((1, 8), np.float32)
-            rng = max(self.max_rating - self.min_rating, 1e-9)
-            hp_host[0, :3] = [float(self._mxu_gb), self.min_rating, rng]
-            hp = jnp.asarray(hp_host)
-            self._svdpp_rates_cache = (rk, rates, hp)
-        W, Q, Y = psv.svdpp_epoch_mxu(
-            W, Q, Y, plan.packed, plan.ph, plan.ub, plan.ib, plan.row,
-            plan.first_flag, rates, hp, meta=plan.meta(fe),
-            num_factors=f, loss=_LOSS_ID[self.loss],
-            sigmoid=self.SIGMOID,
-            interpret=getattr(self, "_svdpp_interpret", False))
-        self._mxu_tables = (W, Q, Y)
 
     def _iterate_sharded(self):
         """Mesh-sharded epoch: user slabs row-sharded over 'data', item
@@ -735,7 +590,6 @@ class GSVDPlusPlus(SVDPlusPlus):
 
     REQUIRED_SIDE_INFO = ("item_attributes",)
     SHARDABLE = False  # attribute-factor updates stay single-device
-    MXU_ELIGIBLE = False  # x-table updates keep the XLA grouped epoch
 
     def __init__(self):
         super().__init__()

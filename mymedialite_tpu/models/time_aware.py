@@ -1,6 +1,6 @@
 """Time-aware baseline rating predictors (Koren TKDD 2009).
 
-TPU-native counterparts of reference
+JAX counterparts of reference
 ``RatingPrediction/TimeAwareBaseline.cs:44`` (time-binned item bias,
 user drift alpha*dev_u(t), per-day user bias, user scaling c_u + c_ut)
 and ``TimeAwareBaselineWithFrequencies.cs:42`` (+ log-frequency item

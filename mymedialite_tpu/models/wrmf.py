@@ -1,6 +1,6 @@
 """WRMF — weighted regularized matrix factorization (implicit ALS).
 
-TPU-native counterpart of reference ``ItemRecommendation/WRMF.cs:53-180``
+JAX counterpart of reference ``ItemRecommendation/WRMF.cs:53-180``
 (Hu/Koren/Volinsky 2008). Alternation solves every user row then every
 item row in closed form; here each side is one batched-solve call
 (ops/als.py) instead of a Parallel.For + per-row matrix inverse.

@@ -83,79 +83,8 @@ def get_lib():
         ]
         lib.mml_free.restype = None
         lib.mml_free.argtypes = [ctypes.c_void_p]
-        try:
-            lib.mml_count_items.restype = None
-            lib.mml_count_items.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_void_p]
-            lib.mml_bucket_count.restype = None
-            lib.mml_bucket_count.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
-                ctypes.c_void_p]
-            lib.mml_bucket_fill_packed.restype = None
-            lib.mml_bucket_fill_packed.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p]
-        except AttributeError:
-            pass  # stale .so without the bucketizer: parser still works
         _lib = lib
         return _lib
-
-
-def _c(arr):
-    return arr.ctypes.data_as(ctypes.c_void_p)
-
-
-def count_items(items, size: int):
-    """Threaded native bincount of an int32 id array, or None."""
-    lib = get_lib()
-    if lib is None or not hasattr(lib, "mml_count_items"):
-        return None
-    items = np.ascontiguousarray(items, dtype=np.int32)
-    out = np.zeros(size, np.int64)
-    lib.mml_count_items(_c(items), len(items), size, _c(out))
-    return out
-
-
-def mxu_bucketize(users, items, values, perm, new_of_old,
-                  UB: int, IB: int, n_ib: int, nbkt: int, chunk_fn):
-    """Native counting-sort replacement for the numpy middle of
-    ``prepare_mxu_data`` (shuffle-gather + bucket argsort + padded
-    scatter + stack, measured ~35 s at the Netflix 20M-rating shape).
-    ``chunk_fn(bcount) -> chunk`` picks the chunk size from the bucket
-    histogram (the histogram-optimal planner). Returns
-    (packed [nc, 4, chunk] int32, bcount, pcount, chunk) or None when
-    the native library is unavailable."""
-    lib = get_lib()
-    if lib is None or not hasattr(lib, "mml_bucket_count"):
-        return None
-    users = np.ascontiguousarray(users, dtype=np.int32)
-    items = np.ascontiguousarray(items, dtype=np.int32)
-    values = np.ascontiguousarray(values, dtype=np.float32)
-    new_of_old = np.ascontiguousarray(new_of_old, dtype=np.int32)
-    if perm is not None:
-        perm = np.ascontiguousarray(perm, dtype=np.int64)
-    n = len(users)
-    bcount = np.zeros(nbkt, np.int64)
-    lib.mml_bucket_count(_c(users), _c(items),
-                         _c(perm) if perm is not None else None, n,
-                         _c(new_of_old), UB, IB, n_ib, nbkt, _c(bcount))
-    chunk = int(chunk_fn(bcount))
-    pcount = ((bcount + chunk - 1) // chunk) * chunk
-    poff = np.concatenate([[0], np.cumsum(pcount)])
-    total = int(poff[-1])
-    nc = max(total // chunk, 1)
-    packed = np.zeros((nc, 4, chunk), np.int32)
-    cursor = np.ascontiguousarray(poff[:-1], dtype=np.int64)
-    lib.mml_bucket_fill_packed(
-        _c(users), _c(items), _c(values),
-        _c(perm) if perm is not None else None, n, _c(new_of_old),
-        UB, IB, n_ib, _c(cursor), chunk, _c(packed))
-    return packed, bcount, pcount, chunk
 
 
 def parse_numeric_file(path: str, min_columns: int,

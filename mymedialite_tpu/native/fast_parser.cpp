@@ -197,105 +197,4 @@ int64_t mml_parse(const char* path, int min_columns, int skip_first_line,
 
 void mml_free(void* ptr) { free(ptr); }
 
-// ---------------------------------------------------------------------------
-// MXU-plan bucketizer (native counterpart of the numpy middle of
-// ops/pallas_sgd.py prepare_mxu_data — the measured ~35s host share of
-// "mxu prep" at the Netflix shape, dominated by a 20M-element stable
-// argsort + int64 bucket math + fancy-indexed gathers; these two
-// single-pass counting-sort passes replace all of it).
-//
-// Pass 1 (mml_bucket_count): per-(user_block x item_block) bucket event
-// counts, threaded with per-thread local histograms.
-// Pass 2 (mml_bucket_fill_packed): scatter each event directly into the
-// kernel's packed [nc, 4, chunk] int32 layout (u_loc, i_loc,
-// bitcast(value), bitcast(weight=1)) at its bucket's running cursor —
-// the padded offsets come from numpy (tiny [nbkt] prefix sums).
-// ``perm`` optionally applies the epoch-0 shuffle during the pass
-// (NULL = identity), so no shuffled copies of the event arrays exist.
-// ---------------------------------------------------------------------------
-
-}  // extern "C"
-
-#include <thread>
-#include <vector>
-
-extern "C" {
-
-void mml_count_items(const int32_t* items, int64_t n, int64_t size,
-                     int64_t* out) {
-    unsigned hw = std::thread::hardware_concurrency();
-    int T = (int)(hw ? (hw < 8 ? hw : 8) : 1);
-    if (n < (int64_t)1 << 20) T = 1;
-    std::vector<std::vector<int64_t>> local(T);
-    std::vector<std::thread> threads;
-    for (int t = 0; t < T; ++t) {
-        threads.emplace_back([&, t]() {
-            auto& cnt = local[t];
-            cnt.assign(size, 0);
-            int64_t lo = n * t / T, hi = n * (t + 1) / T;
-            for (int64_t k = lo; k < hi; ++k) ++cnt[items[k]];
-        });
-    }
-    for (auto& th : threads) th.join();
-    for (int64_t i = 0; i < size; ++i) {
-        int64_t s = 0;
-        for (int t = 0; t < T; ++t) s += local[t][i];
-        out[i] = s;
-    }
-}
-
-void mml_bucket_count(const int32_t* users, const int32_t* items,
-                      const int64_t* perm, int64_t n,
-                      const int32_t* new_of_old,
-                      int32_t UB, int32_t IB, int32_t n_ib,
-                      int64_t nbkt, int64_t* bcount) {
-    unsigned hw = std::thread::hardware_concurrency();
-    int T = (int)(hw ? (hw < 8 ? hw : 8) : 1);
-    if (n < (int64_t)1 << 20) T = 1;
-    std::vector<std::vector<int64_t>> local(T);
-    std::vector<std::thread> threads;
-    for (int t = 0; t < T; ++t) {
-        threads.emplace_back([&, t]() {
-            auto& cnt = local[t];
-            cnt.assign(nbkt, 0);
-            int64_t lo = n * t / T, hi = n * (t + 1) / T;
-            for (int64_t k = lo; k < hi; ++k) {
-                int64_t e = perm ? perm[k] : k;
-                int64_t b = (int64_t)(users[e] / UB) * n_ib
-                            + new_of_old[items[e]] / IB;
-                ++cnt[b];
-            }
-        });
-    }
-    for (auto& th : threads) th.join();
-    for (int64_t b = 0; b < nbkt; ++b) {
-        int64_t s = 0;
-        for (int t = 0; t < T; ++t) s += local[t][b];
-        bcount[b] = s;
-    }
-}
-
-void mml_bucket_fill_packed(const int32_t* users, const int32_t* items,
-                            const float* values, const int64_t* perm,
-                            int64_t n, const int32_t* new_of_old,
-                            int32_t UB, int32_t IB, int32_t n_ib,
-                            int64_t* cursor /* [nbkt], poff copy, mutated */,
-                            int32_t chunk, int32_t* packed) {
-    const float one = 1.0f;
-    int32_t one_bits;
-    memcpy(&one_bits, &one, 4);
-    int64_t C = chunk;
-    for (int64_t k = 0; k < n; ++k) {
-        int64_t e = perm ? perm[k] : k;
-        int32_t i_new = new_of_old[items[e]];
-        int64_t b = (int64_t)(users[e] / UB) * n_ib + i_new / IB;
-        int64_t g = cursor[b]++;
-        int64_t base = (g / C) * 4 * C + (g % C);
-        packed[base] = users[e] % UB;
-        packed[base + C] = i_new % IB;
-        memcpy(&packed[base + 2 * C], &values[e], 4);
-        packed[base + 3 * C] = one_bits;
-    }
-}
-
 }  // extern "C"

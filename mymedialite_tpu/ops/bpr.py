@@ -1,7 +1,7 @@
 """Jitted BPR (Bayesian Personalized Ranking) training epochs with
 on-device triple sampling.
 
-TPU-native replacement for the reference's per-triple loop
+JAX replacement for the reference's per-triple loop
 (``BPRMF.cs:152-374``): the CPU code rejection-samples negatives against
 a per-user HashSet with unbounded retries (``BPRMF.cs:279-284``) — not
 expressible in XLA. Here:
@@ -234,7 +234,7 @@ def popularity_cdf(feedback) -> jnp.ndarray:
 # mesh-sharded BPR epoch — multi-chip data parallelism
 # ---------------------------------------------------------------------------
 #
-# The TPU mapping of the reference's MultiCoreBPRMF (MultiCoreBPRMF.cs:30,
+# The mesh counterpart of the reference's MultiCoreBPRMF (MultiCoreBPRMF.cs:30,
 # Parallel.ForEach over PartitionIndices blocks, hogwild updates): users
 # are partitioned into contiguous ranges, one per device; each device
 # samples triples FOR ITS OWN USERS on-device (per-device fold_in key) so

@@ -1,19 +1,11 @@
 """Banked (windowed) row gather for large tables.
 
-XLA's TPU gather from an HBM-resident table runs at a fixed ~12-14 ns
-per row once the table is past ~33 MB (measured v5e: a [480k, 42] f32
-user-factor table gathers 2M rows in 30 ms), while the same gather from
-a table under that threshold runs ~4.5x faster (~3.2 ns/row) — the
-compiler switches from an on-chip gather to a per-row HBM access loop.
-The rating evaluator's device path was gather-bound on exactly this
-(VERDICT r4 weak #3: 38.4 ms for a 1.4M-pair probe vs a ~1 ms HBM
-roofline).
-
-The fix: sort the index stream once (metric sums are order-invariant),
-cut it into segments whose index SPAN fits a fixed row window, and
-gather each segment from a ``dynamic_slice`` of the table — every
-window is under the fast-path threshold, so the whole gather runs at
-the small-table rate (measured 8.6 ms vs 30.1 ms on the probe shape).
+The rating evaluator sorts its index stream once (metric sums are
+order-invariant), cuts it into segments whose index SPAN fits a fixed
+row window, and gathers each segment from a ``dynamic_slice`` of the
+table, so no single gather reads from the whole table. This was written
+for an accelerator whose gather slowed sharply past a table-size
+threshold; whether it beats a plain gather on a GPU is unmeasured.
 
 Host side: :func:`banked_plan` builds the segmented layout. Device
 side: :func:`banked_take` runs the scan-of-windows gather under jit.
@@ -23,16 +15,13 @@ from __future__ import annotations
 
 import numpy as np
 
-# window: rows per dynamic-slice view. 65,536 rows keeps the window
-# under the measured ~33 MB fast-gather threshold up to ~128 f32
-# columns (65,536 x 130 x 4 B = 34 MB — borderline; typical MF widths
-# of 40-64 sit at 11-17 MB with plenty of margin).
+# window: rows per dynamic-slice view (11-17 MB at MF widths of 40-64
+# f32 columns).
 WINDOW = 65_536
 # segment capacity: indices per window segment. Must divide the
 # evaluator's partial-sum chunk layout (multiples of 1024).
 SEG_C = 65_536
-# banked gather only pays off when the table is past the fast-path
-# cliff; below it the plain gather already runs at the fast rate.
+# tables with fewer rows take the plain gather
 MIN_ROWS = 262_144
 
 

@@ -1,6 +1,6 @@
 """Jitted minibatch-SGD epoch kernels for the matrix-factorization family.
 
-TPU-native replacement for the reference's sequential per-rating SGD
+JAX replacement for the reference's sequential per-rating SGD
 inner loops (``MatrixFactorization.cs:166-196``,
 ``BiasedMatrixFactorization.cs:264-309``) and its DSGD multicore
 scheduler (``MultiCore.cs:43-73``): an epoch is a ``lax.scan`` over
@@ -11,16 +11,17 @@ mathematically the same family of update as the reference's
 block-parallel DSGD, validated by held-out quality rather than
 bit-identical trajectories (SURVEY §7 'hard parts').
 
-Performance notes (measured on v5e):
+Design notes:
 - the rating stream is shuffled ONCE on the host (the reference's cached
   ``RandomIndex``, DataSet.cs:100-108, is likewise shuffled once); per
   epoch only the batch-visit order is re-randomized, so batches are
   contiguous dynamic slices, not 20M-element on-device permutations;
-- naive ``.at[ids].add`` scatter with duplicate ids is the bottleneck on
-  TPU. Instead each batch carries host-precomputed dedup structures
+- the flat epoch's batches carry host-precomputed dedup structures
   (unique sorted target rows + a segment id per example); the update is
   a ``segment_sum`` over examples followed by a scatter-add with
-  ``indices_are_sorted=True, unique_indices=True`` — XLA's fast path.
+  ``indices_are_sorted=True, unique_indices=True``, instead of a
+  ``.at[ids].add`` scatter with duplicate ids. Whether this still pays
+  on a GPU, where duplicate scatter-adds are atomics, is unmeasured.
   Padding slots use out-of-range row ids which scatter-``drop``s.
 
 All shapes are static: the rating arrays are padded to a multiple of the
@@ -198,30 +199,17 @@ def sgd_epoch(params, data, key, hp, *, batch_size: int, loss: int,
 
 
 # ---------------------------------------------------------------------------
-# blocked (slab) epoch — the fast single-chip path
+# blocked (slab) epoch — the single-device path of the MF family
 # ---------------------------------------------------------------------------
 #
-# Measured on v5e (480k users x 17.7k items x f=40, 20M ratings):
-#   flat epoch, naive scatter      4.8M updates/s
-#   flat epoch, dedup scatter      6.5M updates/s
-#   blocked epoch (this path)     37.5M updates/s  (~90x reference CPU)
-#   (46.5M at the bench.py shape after catalog-size tuning)
-# Update-application alternatives measured via exp_sgd.py (8M ratings):
-#   A blocked + duplicate scatter (this path)   42.6M updates/s
-#   B gathers+math only, no updates (bound)    140.0M updates/s
-#   C user side as sorted segment_sum + add     41.5M updates/s
-#   D C + item side dedup sorted-unique scatter 26.2M updates/s
-# i.e. XLA's duplicate scatter-add IS the fast path; the remaining 3.3x
-# to the no-scatter bound is the read-modify-write itself, not fixable
-# by dedup/segment restructuring at these shapes.
-# The wins: (1) ratings grouped by contiguous user-id ranges, so the user
-# table is processed through a small VMEM-resident slab (gathers from a
-# 2.6MB slab run ~8x faster than from the 77MB table); (2) biases fused
-# into the factor tables as two extra columns ([factors | b, 1] for
-# users, [factors | 1, b] for items) so each side is ONE gather + ONE
-# scatter instead of three of each; per-column learn-rate/reg vectors
-# freeze the constant-1 columns. This is the reference's Gemulla-DSGD
-# block idea (MultiCore.cs:43-73) mapped onto the TPU memory hierarchy.
+# (1) Ratings are grouped by contiguous user-id ranges, so each group's
+# user rows are gathered from and scattered to a small slab of the user
+# table instead of the whole table; (2) biases are fused into the factor
+# tables as two extra columns ([factors | b, 1] for users, [factors | 1,
+# b] for items) so each side is ONE gather + ONE scatter instead of three
+# of each; per-column learn-rate/reg vectors freeze the constant-1
+# columns. Item updates use XLA's duplicate scatter-add. This is the
+# reference's Gemulla-DSGD block idea (MultiCore.cs:43-73) on one device.
 
 def prepare_blocked_data(users, items, values, num_users: int,
                          batch_size: int, group_users: int = 16_384,

@@ -1,6 +1,6 @@
 """Jitted training epochs for the SVD++ / asymmetric-factor-model family.
 
-TPU-native replacement for the reference's per-rating loop that touches
+JAX replacement for the reference's per-rating loop that touches
 every item in the user's history (``SVDPlusPlus.cs:157-213``): users are
 processed in contiguous id groups; per group the implicit user vector
     s_u = (sum_{j in I_u} y_j) / sqrt(|I_u|)   (+ p_u where applicable)
@@ -150,8 +150,11 @@ def svdpp_epoch(params, data, hp, *, group_users: int, ngroups: int,
                 # gSVD++ (GSVDPlusPlus.cs:115-128): effective item factor
                 # q_i + mean of the item's attribute factors x_a
                 A_rows = data["attr_norm"][ri]
-                qi = qi_raw + jnp.dot(A_rows, p_["x"],
-                                      preferred_element_type=jnp.float32)
+                # HIGHEST: training math, a TF32 product would round
+                # the attribute factors
+                qi = qi_raw + jnp.dot(
+                    A_rows, p_["x"], precision=jax.lax.Precision.HIGHEST,
+                    preferred_element_type=jnp.float32)
             else:
                 qi = qi_raw
             score = p_["global_bias"] + bu_slab[ru] + p_["item_bias"][ri] + \
@@ -194,6 +197,7 @@ def svdpp_epoch(params, data, hp, *, group_users: int, ngroups: int,
                     # x update (GSVDPlusPlus.cs:163-174)
                     A_rows = data["attr_norm"][ri] * rm[:, None]
                     dX = jnp.dot(A_rows.T, gcom[:, None] * su,
+                                 precision=jax.lax.Precision.HIGHEST,
                                  preferred_element_type=jnp.float32)
                     occ = jnp.sum(jnp.sign(A_rows), axis=0)
                     dX = dX - (occ * hp["x_reg"])[:, None] * p_["x"]

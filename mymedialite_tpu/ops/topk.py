@@ -1,7 +1,7 @@
 """Full-catalog top-K scoring / retrieval.
 
-TPU-native replacement for the reference's per-candidate Predict loop +
-C5 IntervalHeap (``Recommender.cs:52-103``): one [B, f] x [f, N] MXU
+JAX replacement for the reference's per-candidate Predict loop +
+C5 IntervalHeap (``Recommender.cs:52-103``): one [B, f] x [f, N]
 matmul per user block, per-user ignore masks applied on device, then
 ``jax.lax.top_k``. This is the serving-path kernel of the BASELINE.json
 north star.

@@ -1,6 +1,6 @@
 """Device mesh + sharding helpers.
 
-The TPU-native replacement for the reference's multicore runtime
+The replacement for the reference's multicore runtime
 (``MultiCore.cs:43-92`` DSGD block partitioning + ``Parallel.For``):
 embedding tables are row-sharded over a 1-D ``data`` mesh axis and the
 minibatch is sharded the same way; XLA's SPMD partitioner inserts the
@@ -52,7 +52,7 @@ def pad_rows_to_multiple(arr: np.ndarray, multiple: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 #
 # The reference is strictly single-process (SURVEY §2.9: the only
-# concurrency is System.Threading.Tasks). The TPU-native framework adds
+# concurrency is System.Threading.Tasks). This framework adds
 # a jax.distributed layer: every host runs the same program, calls
 # initialize_distributed() first, and from then on jax.devices() is the
 # GLOBAL device list, so make_mesh()/make_global_mesh() span the pod

@@ -1,6 +1,6 @@
 """Hyperparameter configuration: ``key=value`` strings applied to models.
 
-TPU-native counterpart of reference ``RecommenderParameters.cs:29-262``
+JAX counterpart of reference ``RecommenderParameters.cs:29-262``
 plus ``Extensions.Configure/SetProperty`` (``Extensions.cs:46,103-165``):
 case-insensitive, underscore-stripping *prefix* matching against the
 model's declared hyperparameters. Instead of .NET reflection, models

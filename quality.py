@@ -4,13 +4,10 @@ The environment has no network egress (and no mono to run the C#
 reference), so quality is validated on synthetic data with MovieLens-like
 statistics: each model must land in the expected ordering (factor models
 beat biases beat global average; BPR/WRMF beat popularity) with
-literature-plausible margins. Results recorded in BASELINE.md.
+literature-plausible margins. Results recorded in BASELINE.md. Times
+are host wall-clock on the device JAX reports in the first line.
 
-Each row is tagged with the engaged kernel AND its MXU operand dtype
-(``[mxu/bf16]``, ``[mxu/f32]``, ``[xla]``) so the production bf16
-default is a measured, documented choice (VERDICT r3 weak #4).
-
-Usage: python quality.py [--small] [--f32]
+Usage: python quality.py [--small]
 """
 
 from __future__ import annotations
@@ -21,16 +18,12 @@ import time
 import numpy as np
 
 
-def _kernel_tag(m, plan_attr: str) -> str:
-    """Engaged-kernel tag for a result row: kernel/dtype."""
-    if getattr(m, plan_attr, None) is None:
-        return "xla"
-    return f"mxu/{getattr(m, 'mxu_dtype', 'bf16')}"
-
-
 def main():
     small = "--small" in sys.argv
-    f32 = "--f32" in sys.argv  # force f32 MXU operands (bf16 quality probe)
+    import jax
+    d = jax.devices()[0]
+    print(f"# device: {d.platform} {d.device_kind} x{len(jax.devices())}",
+          flush=True)
     from mymedialite_tpu.data.synthetic import (
         split_posonly, split_ratings, synthetic_posonly, synthetic_ratings,
     )
@@ -94,8 +87,6 @@ def main():
         m = create_rating_predictor(name)
         if opts:
             configure(m, opts)
-        if f32 and hasattr(m, "mxu_dtype"):
-            m.mxu_dtype = "f32"
         if name == "SocialMF":
             m.user_relation = trust
         m.ratings = train
@@ -105,11 +96,8 @@ def main():
         t0 = time.time()
         res = evaluate_ratings(m, test)
         t_eval = time.time() - t0
-        path = _kernel_tag(m, "_mxu_plan")
-        if path == "xla" and getattr(m, "_svdpp_plan", None) is not None:
-            path = f"mxu/{getattr(m, 'mxu_dtype', 'bf16')}"
         print(f"{name:30s} {res}  train {t_train:6.1f}s eval "
-              f"{t_eval:5.1f}s [{path}]", flush=True)
+              f"{t_eval:5.1f}s", flush=True)
 
     # --- time-aware baselines on drifting timed data (Koren 2009;
     # reference TimeAwareBaseline.cs) — the generator plants per-item
@@ -133,8 +121,7 @@ def main():
         m.train()
         t_train = time.time() - t0
         res = evaluate_ratings(m, ttest)
-        print(f"{name:34s} {res}  train {t_train:6.1f}s [xla]",
-              flush=True)
+        print(f"{name:34s} {res}  train {t_train:6.1f}s", flush=True)
 
     # --- item recommendation, implicit ML shape ---
     pos = synthetic_posonly(num_users=int(6040 * scale) or 60,
@@ -149,7 +136,7 @@ def main():
         ("MostPopular", ""),
         ("ItemKNN", "k=80"),
         ("BPRMF", "num_factors=32 num_iter=50"),
-        # tuned per the exp_bpr.py sweep (BASELINE.md BPR table)
+        # tuned by a learn-rate / regularization sweep (BASELINE.md)
         ("BPRMF", "num_factors=16 num_iter=100 learn_rate=0.02"
                   " reg_u=0.01 reg_i=0.01 reg_j=0.001"),
         ("WeightedBPRMF", "num_factors=16 num_iter=100 learn_rate=0.02"
@@ -170,8 +157,6 @@ def main():
         m = create_item_recommender(name)
         if opts:
             configure(m, opts)
-        if f32 and hasattr(m, "mxu_dtype"):
-            m.mxu_dtype = "f32"
         m.feedback = ptrain
         t0 = time.time()
         m.train()
@@ -179,9 +164,8 @@ def main():
         t0 = time.time()
         res = evaluate_items(m, ptest, ptrain)
         t_eval = time.time() - t0
-        path = _kernel_tag(m, "_bpr_plan")
         print(f"{name:30s} {res}  train {t_train:6.1f}s eval "
-              f"{t_eval:5.1f}s [{path}]", flush=True)
+              f"{t_eval:5.1f}s", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,9 @@
 """Unit tests for the WRMF ALS substrate (ops/als.py).
 
 The batched normal-equation solves replace the reference's per-row
-MathNet ``DenseMatrix.Inverse()`` (``WRMF.cs:110-156``); the solver is
-a hand-rolled batched Cholesky (XLA's batched LU is loop-lowered and
-~5x slower on TPU, see exp_als.py), so its exactness needs a direct
-oracle check independent of the model-level quality tests.
+MathNet ``DenseMatrix.Inverse()`` (``WRMF.cs:110-156``); the batched
+Cholesky solve is checked directly against a float64 oracle,
+independent of the model-level quality tests.
 """
 
 import numpy as np

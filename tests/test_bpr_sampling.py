@@ -19,6 +19,7 @@ import pytest
 from scipy import stats
 
 import jax
+import jax.numpy as jnp
 
 from mymedialite_tpu.data import PosOnlyData
 from mymedialite_tpu.ops import bpr as bpr_ops
@@ -182,3 +183,80 @@ class TestWBPR:
             assert obs[~keep].sum() == 0
             p = stats.chisquare(obs[keep], expected[keep]).pvalue
             assert p > 1e-4, (uid, obs, expected, p)
+
+
+class TestNegativesNeverPositive:
+    """Every kept triple's negative lies outside the user's history, in
+    every regime (the fixed-trial sampler's one hard guarantee)."""
+
+    @pytest.mark.parametrize("regime", [bpr_ops.UNIFORM_USER,
+                                        bpr_ops.UNIFORM_PAIR,
+                                        bpr_ops.WBPR,
+                                        bpr_ops.UNIFORM_PAIR_WOR])
+    def test_all_users(self, feedback, sampler, regime):
+        data, meta = sampler
+        n = 4096
+        perm = (jax.random.permutation(jax.random.PRNGKey(8),
+                                       np.arange(n, dtype=np.int32))
+                % meta["num_events"]
+                if regime == bpr_ops.UNIFORM_PAIR_WOR else None)
+        pop_cdf = bpr_ops.popularity_cdf(feedback) \
+            if regime == bpr_ops.WBPR else None
+        u, i, j = draw(data, meta, regime, n=n, key=4, pop_cdf=pop_cdf,
+                       perm=perm)
+        assert u.size > 0
+        for uid in range(8):
+            pos = positives(feedback, uid)
+            assert set(i[u == uid].tolist()) <= pos
+            assert not set(j[u == uid].tolist()) & pos
+
+
+class TestPerUserSuccessRate:
+    """Uniform negatives: a triple keeps weight 1 with probability exactly
+    1 - (|I_u|/I)^T (T fixed trials), per user."""
+
+    @pytest.mark.parametrize("uid", range(8))
+    def test_rate_matches_closed_form(self, feedback, sampler, uid):
+        data, meta = sampler
+        n = 40_000
+        users = jnp.full((n,), uid, dtype=jnp.int32)
+        _, ok = bpr_ops._sample_negatives(
+            jax.random.PRNGKey(20 + uid), data, users, meta["num_items"],
+            meta["num_neg_trials"], meta["search_depth"])
+        p = 1.0 - (len(positives(feedback, uid)) / 12) ** \
+            meta["num_neg_trials"]
+        rate = float(np.asarray(ok).mean())
+        assert abs(rate - p) < 4 * np.sqrt(p * (1 - p) / n) + 1e-9, \
+            (rate, p)
+
+
+class TestShardedSampler:
+    """make_sampler_data_sharded (MultiCoreBPRMF on a mesh): users split
+    into contiguous per-device ranges, each device's histories and
+    events exactly its users' share of the global feedback."""
+
+    @pytest.mark.parametrize("n_dev", [2, 4])
+    def test_partition_covers_every_event_once(self, feedback, n_dev):
+        data, meta = bpr_ops.make_sampler_data_sharded(feedback, n_dev)
+        got = []
+        for d in range(n_dev):
+            k = int(data["ev_count"][d])
+            u = np.asarray(data["ev_user"][d][:k]) + d * meta["u_loc"]
+            got += list(zip(u.tolist(),
+                            np.asarray(data["ev_item"][d][:k]).tolist()))
+        want = list(zip(np.asarray(feedback.users).tolist(),
+                        np.asarray(feedback.items).tolist()))
+        assert sorted(got) == sorted(want)
+
+    @pytest.mark.parametrize("n_dev", [2, 4])
+    def test_local_histories_match_global(self, feedback, n_dev):
+        data, meta = bpr_ops.make_sampler_data_sharded(feedback, n_dev)
+        for d in range(n_dev):
+            indptr = np.asarray(data["indptr"][d])
+            hist = np.asarray(data["hist_items"][d])
+            for lu in range(meta["u_loc"]):
+                uid = d * meta["u_loc"] + lu
+                seg = hist[indptr[lu]:indptr[lu + 1]]
+                want = sorted(positives(feedback, uid)) \
+                    if uid < feedback.num_users else []
+                assert seg.tolist() == want

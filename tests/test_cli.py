@@ -10,9 +10,6 @@ import pytest
 
 from mymedialite_tpu.cli import item_recommendation, rating_prediction
 
-TRAIN = "/root/reference/tests/example.train"
-TEST = "/root/reference/tests/example.test"
-
 
 def _strip_times(text: str) -> str:
     # the reference golden tests strip timing fields before diffing
@@ -44,7 +41,8 @@ def implicit_files(tmp_path):
 
 
 class TestRatingPredictionCLI:
-    def test_basic(self, capsys):
+    def test_basic(self, example_files, capsys):
+        TRAIN, TEST = example_files
         rc = rating_prediction.main([
             "--training-file", TRAIN, "--test-file", TEST,
             "--recommender", "UserItemBaseline"])
@@ -60,7 +58,8 @@ class TestRatingPredictionCLI:
                          r" sparsity \d+(\.\d+)?\n", out)
         assert "\nUserItemBaseline " in out
 
-    def test_find_iter(self, capsys):
+    def test_find_iter(self, example_files, capsys):
+        TRAIN, TEST = example_files
         rc = rating_prediction.main([
             "--training-file", TRAIN, "--test-file", TEST,
             "--recommender", "MatrixFactorization",
@@ -71,9 +70,10 @@ class TestRatingPredictionCLI:
         assert "iteration 2" in out
         assert "iteration 4" in out
 
-    def test_save_load_determinism(self, tmp_path, capsys):
+    def test_save_load_determinism(self, example_files, tmp_path, capsys):
         """The reference test_load_save.sh oracle: train+save, then load;
         stripped outputs must be identical."""
+        TRAIN, TEST = example_files
         model = str(tmp_path / "m.model")
         rating_prediction.main([
             "--training-file", TRAIN, "--test-file", TEST,
@@ -89,14 +89,16 @@ class TestRatingPredictionCLI:
         out2 = _strip_times(capsys.readouterr().out)
         assert out1 == out2
 
-    def test_cross_validation(self, capsys):
+    def test_cross_validation(self, example_files, capsys):
+        TRAIN, TEST = example_files
         rc = rating_prediction.main([
             "--training-file", TRAIN, "--recommender", "UserItemBaseline",
             "--cross-validation", "2", "--random-seed", "1"])
         assert rc == 0
         assert "RMSE" in capsys.readouterr().out
 
-    def test_prediction_file(self, tmp_path, capsys):
+    def test_prediction_file(self, example_files, tmp_path, capsys):
+        TRAIN, TEST = example_files
         pred = str(tmp_path / "preds.txt")
         rating_prediction.main([
             "--training-file", TRAIN, "--test-file", TEST,
@@ -106,7 +108,8 @@ class TestRatingPredictionCLI:
         assert len(lines) == 4  # example.test has 4 ratings
         assert all(len(line.split("\t")) == 3 for line in lines)
 
-    def test_test_ratio(self, capsys):
+    def test_test_ratio(self, example_files, capsys):
+        TRAIN, TEST = example_files
         rc = rating_prediction.main([
             "--training-file", TRAIN, "--recommender", "GlobalAverage",
             "--test-ratio", "0.25", "--random-seed", "7"])
@@ -117,13 +120,14 @@ class TestRatingPredictionCLI:
         with pytest.raises(SystemExit) as exc:
             rating_prediction.main(["--version"])
         assert exc.value.code == 0
-        assert "MyMediaLite-TPU rating_prediction" in capsys.readouterr().out
+        assert "MyMediaLite-JAX rating_prediction" in capsys.readouterr().out
         with pytest.raises(SystemExit) as exc:
             rating_prediction.main(["--help-measures"])
         assert exc.value.code == 0
         assert "RMSE" in capsys.readouterr().out
 
-    def test_prediction_line_and_header(self, tmp_path, capsys):
+    def test_prediction_line_and_header(self, example_files, tmp_path, capsys):
+        TRAIN, TEST = example_files
         pred = str(tmp_path / "preds.txt")
         rating_prediction.main([
             "--training-file", TRAIN, "--test-file", TEST,
@@ -138,7 +142,8 @@ class TestRatingPredictionCLI:
         test_lines = open(TEST).read().strip().split("\n")
         assert lines[1].split(",")[0] == test_lines[0].split()[1]
 
-    def test_test_no_ratings(self, tmp_path, capsys):
+    def test_test_no_ratings(self, example_files, tmp_path, capsys):
+        TRAIN, TEST = example_files
         nr = tmp_path / "nr.test"
         with open(TEST) as f:
             rows = [line.split()[:2] for line in f if line.strip()]
@@ -156,7 +161,9 @@ class TestRatingPredictionCLI:
         lines = open(pred).read().strip().split("\n")
         assert len(lines) == len(rows)
 
-    def test_test_no_ratings_requires_prediction_file(self, capsys):
+    def test_test_no_ratings_requires_prediction_file(self, example_files,
+                                                      capsys):
+        TRAIN, TEST = example_files
         with pytest.raises(SystemExit):
             rating_prediction.main([
                 "--training-file", TRAIN, "--test-file", TEST,
@@ -270,7 +277,8 @@ class TestIterativeCrossValidation:
     """Reference RatingsCrossValidation.cs:92-171 / ItemsCrossValidation
     DoIterativeCrossValidation: --cross-validation + --find-iter."""
 
-    def test_rating(self, capsys):
+    def test_rating(self, example_files, capsys):
+        TRAIN, TEST = example_files
         rc = rating_prediction.main([
             "--training-file", TRAIN, "--recommender", "MatrixFactorization",
             "--recommender-options", "num_iter=2 batch_size=8",
@@ -297,7 +305,8 @@ class TestIterativeCrossValidation:
 
 
 class TestTransductiveWiring:
-    def test_svdpp_receives_test_histories(self, capsys):
+    def test_svdpp_receives_test_histories(self, example_files, capsys):
+        TRAIN, TEST = example_files
         from mymedialite_tpu.cli import rating_prediction as rp
         import mymedialite_tpu as mml
         m = mml.create_rating_predictor("SVDPlusPlus")
@@ -326,7 +335,8 @@ class TestTransductiveWiring:
 class TestRatingBasedRankingCLI:
     """Reference src/Programs/RatingBasedRanking/RatingBasedRanking.cs."""
 
-    def test_basic(self, capsys):
+    def test_basic(self, example_files, capsys):
+        TRAIN, TEST = example_files
         from mymedialite_tpu.cli import rating_based_ranking
         rc = rating_based_ranking.main([
             "--training-file", TRAIN, "--test-file", TEST,
@@ -335,7 +345,8 @@ class TestRatingBasedRankingCLI:
         out = capsys.readouterr().out
         assert "AUC" in out and "prec@5" in out
 
-    def test_cross_validation_without_test_file(self, capsys):
+    def test_cross_validation_without_test_file(self, example_files, capsys):
+        TRAIN, TEST = example_files
         from mymedialite_tpu.cli import rating_based_ranking
         rc = rating_based_ranking.main([
             "--training-file", TRAIN, "--recommender", "UserItemBaseline",
@@ -343,7 +354,8 @@ class TestRatingBasedRankingCLI:
         assert rc == 0
         assert "AUC" in capsys.readouterr().out
 
-    def test_cv_find_iter_rejected(self, capsys):
+    def test_cv_find_iter_rejected(self, example_files, capsys):
+        TRAIN, TEST = example_files
         # reference RatingBasedRanking.CheckParameters :64-65
         from mymedialite_tpu.cli import rating_based_ranking
         with pytest.raises(SystemExit):

@@ -75,11 +75,11 @@ class TestNelderMead:
 
 
 class TestRatingBasedRankingCLI:
-    def test_end_to_end(self, capsys):
+    def test_end_to_end(self, example_files, capsys):
         from mymedialite_tpu.cli import rating_based_ranking as rbr
+        train, test = example_files
         rc = rbr.main([
-            "--training-file", "/root/reference/tests/example.train",
-            "--test-file", "/root/reference/tests/example.test",
+            "--training-file", train, "--test-file", test,
             "--recommender", "UserItemBaseline"])
         assert rc == 0
         out = capsys.readouterr().out

@@ -140,71 +140,39 @@ class TestLoadThenIterate:
         assert np.isfinite(m2.predict(new_u, 2))
 
 
-class TestMXUBPREpoch:
-    """Model-level coverage for the Pallas MXU BPR epoch
-    (ops/pallas_bpr.py), forced into interpret mode on CPU — it
-    auto-selects as the production path on single-chip TPU
-    (models/bpr.py _mxu_mode). Kernel/sampler numerics live in
-    tests/test_bpr_sampling.py."""
+class TestBPREpochModelLayer:
+    """The BPR family trains through the XLA minibatch epoch
+    (ops/bpr.py bpr_epoch) via the model's own train(); sampler
+    numerics live in tests/test_bpr_sampling.py."""
 
     def _small(self):
         data = synthetic_posonly(num_users=80, num_items=50,
                                  num_events=3000, seed=31)
         return split_posonly(data, seed=32)
 
-    def test_model_trains_through_mxu_path(self, monkeypatch):
-        monkeypatch.setenv("MML_MXU", "interpret")
-        train, test = self._small()
-        m = create_item_recommender("BPRMF")
-        m.feedback = train
-        m.num_factors = 8
-        m.num_iter = 5
-        m.train()
-        assert m._bpr_plan is not None    # the MXU path actually engaged
-        res = evaluate_items(m, test, train)
+    @staticmethod
+    def _random_auc(train, test):
         rnd = create_item_recommender("Random")
         rnd.feedback = train
         rnd.train()
-        res_rnd = evaluate_items(rnd, test, train)
-        assert res["AUC"] > res_rnd["AUC"] + 0.1
+        return evaluate_items(rnd, test, train)["AUC"]
 
-    def test_soft_margin_through_mxu_path(self, monkeypatch):
-        monkeypatch.setenv("MML_MXU", "interpret")
+    @pytest.mark.parametrize("name,margin", [
+        ("BPRMF", 0.1), ("SoftMarginRankingMF", 0.05),
+        ("WeightedBPRMF", 0.05)])
+    def test_model_trains(self, name, margin):
         train, test = self._small()
-        m = create_item_recommender("SoftMarginRankingMF")
+        m = create_item_recommender(name)
         m.feedback = train
         m.num_factors = 8
         m.num_iter = 5
+        m.batch_size = 256
         m.train()
-        assert m._bpr_plan is not None
         res = evaluate_items(m, test, train)
-        assert res["AUC"] > 0.55
+        assert res["AUC"] > self._random_auc(train, test) + margin
 
-    def test_wbpr_through_mxu_path(self, monkeypatch):
-        """WeightedBPRMF now rides the fused kernel with popularity
-        negatives (wbpr=True) instead of falling back to the ~3x XLA
-        path (reference WeightedBPRMF.cs:55-66)."""
-        monkeypatch.setenv("MML_MXU", "interpret")
-        train, test = self._small()
-        m = create_item_recommender("WeightedBPRMF")
-        m.feedback = train
-        m.num_factors = 8
-        m.num_iter = 5
-        m.train()
-        assert m._bpr_plan is not None
-        res = evaluate_items(m, test, train)
-        assert res["AUC"] > 0.55
-
-    def test_model_selects_tiled_past_vmem_budget(self, monkeypatch):
-        """Big catalogs beyond the VMEM item-table budget auto-select
-        the flat slab-tiled BPR epoch (bpr_epoch_mxu_tiled) instead of
-        falling back to the ~3x XLA path."""
-        from mymedialite_tpu.ops import pallas_sgd as ps
-        monkeypatch.setenv("MML_MXU", "interpret")
-        # 3000-item catalog too big for the (shrunk) resident budget,
-        # single-block slabs fit the (shrunk) slab budget
-        monkeypatch.setattr(ps, "VMEM_ITEM_TABLE_BYTES", 512 * 1024)
-        monkeypatch.setattr(ps, "TILED_SLAB_BYTES", 256 * 1024)
+    def test_big_catalog(self):
+        """A catalog much larger than the user count still learns."""
         data = synthetic_posonly(num_users=80, num_items=3000,
                                  num_events=30000, seed=41)
         train, test = split_posonly(data, seed=42)
@@ -212,34 +180,27 @@ class TestMXUBPREpoch:
         m.feedback = train
         m.num_factors = 8
         m.num_iter = 10
+        m.batch_size = 1024
         m.train()
-        assert m._bpr_plan is not None
-        assert m._bpr_tiled is not None        # the tiled path engaged
-        assert m._bpr_tiled["num_slabs"] >= 2
         res = evaluate_items(m, test, train)
-        rnd = create_item_recommender("Random")
-        rnd.feedback = train
-        rnd.train()
-        assert res["AUC"] > evaluate_items(rnd, test, train)["AUC"] + 0.1
+        assert res["AUC"] > self._random_auc(train, test) + 0.1
 
-    def test_add_feedback_invalidates_plan(self, monkeypatch):
+    def test_add_feedback_rebuilds_sampler(self):
         """AddFeedback then Iterate must train on the CURRENT feedback
-        (reference BPRMF.cs:129-160): the MXU plan is rebuilt from the
+        (reference BPRMF.cs:129-160): the sampler is rebuilt from the
         updated event stream, never reused stale."""
-        monkeypatch.setenv("MML_MXU", "interpret")
         train, _ = self._small()
         m = create_item_recommender("BPRMF")
         m.feedback = train
         m.num_factors = 4
         m.num_iter = 2
         m.train()
-        plan0 = m._bpr_plan
-        assert plan0 is not None and plan0.n_ratings == len(train)
+        assert m._meta["num_events"] == len(train)
         new_u = train.num_users
         m.add_feedback([new_u, new_u, new_u], [1, 2, 3])
         m.iterate()
-        assert m._bpr_plan is not plan0
-        assert m._bpr_plan.n_ratings == len(m.feedback)
+        assert m._meta["num_events"] == len(m.feedback)
+        assert m.params["user_factors"].shape[0] == new_u + 1
 
 
 class TestMostPopular:

@@ -289,18 +289,16 @@ class TestOnlineEvalFastPath:
         assert np.isfinite(m.predict(0, 0))
 
 
-class TestMXUEpochPath:
-    """The Pallas MXU one-hot-matmul epoch (ops/pallas_sgd.py), forced
-    into interpret mode on CPU: the model auto-selects it on TPU
-    (models/mf.py _mxu_mode); kernel numerics vs numpy are covered by
-    exp_mxu.py --check."""
+class TestBiasedMFSmallShape:
+    """BiasedMatrixFactorization at a small shape trains through the
+    blocked XLA epoch (ops/sgd.py sgd_epoch_blocked) and beats the
+    global average."""
 
-    def test_model_trains_through_mxu_path(self, monkeypatch):
+    def test_model_trains_through_xla_epoch(self):
         from mymedialite_tpu.data.synthetic import (
             split_ratings, synthetic_ratings,
         )
         from mymedialite_tpu.eval.rating import evaluate_ratings
-        monkeypatch.setenv("MML_MXU", "interpret")
         data = synthetic_ratings(num_ratings=2000, num_users=60,
                                  num_items=40, seed=21)
         train, test = split_ratings(data, seed=22)
@@ -308,14 +306,14 @@ class TestMXUEpochPath:
         m.num_factors = 4
         m.num_iter = 3
         m.random_seed = 5
+        m.batch_size = 256
         m.ratings = train
         m.train()
-        assert m._mxu_plan is not None  # the MXU path actually engaged
+        assert m._blocked is not None
         res = evaluate_ratings(m, test)
         ga = create_rating_predictor("GlobalAverage")
         ga.ratings = train
         ga.train()
         assert res["RMSE"] < evaluate_ratings(ga, test)["RMSE"] + 0.02
-        # save/load stays bit-identical through the layout conversions
         pred = m.predict_batch(np.arange(10), np.arange(10))
         assert np.isfinite(pred).all()

@@ -137,7 +137,7 @@ class TestMultiHostScaffolding:
 
 
 class TestTwoProcessDistributed:
-    """A REAL multi-process jax.distributed run (VERDICT r3 #5): two
+    """A REAL multi-process jax.distributed run: two
     CPU-backend subprocesses (2 virtual devices each) drive
     initialize_distributed -> make_global_mesh -> host_local_rows ->
     shard_host_local -> one sgd_epoch_blocked_sharded step over Gloo
